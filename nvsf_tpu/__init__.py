@@ -1,12 +1,12 @@
-"""nvsf_tpu — a TPU-native (JAX/XLA/Pallas) rebuild of Selfsupervised-NVSF.
+"""nvsf_tpu — a JAX/XLA rebuild of Selfsupervised-NVSF.
 
 Joint self-supervised training of LiDAR (depth + intensity + ray-drop) and camera
 RGB neural fields on autonomous-driving sequences, with spatio-temporal novel-view
 synthesis for both sensors including novel sensor intrinsics/extrinsics.
 
-Layer map (mirrors SURVEY.md section 1 of the reference, rebuilt TPU-first):
-  - ops/        fused compute kernels (hash-grid lookup, chamfer, compositing,
-                occupancy marching) — Pallas/XLA instead of CUDA extensions
+Layer map (mirrors SURVEY.md section 1 of the reference):
+  - ops/        compute kernels (table gather/scatter, chamfer, occupancy
+                compaction) — XLA instead of CUDA extensions
   - models/     neural field encoders + heads (K-planes, 4D hash grid, flow field,
                 U-Net) — pure-pytree modules instead of tcnn/torch
   - render/     volume renderer (uniform + occupancy-accelerated sampling)

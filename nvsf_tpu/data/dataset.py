@@ -1,6 +1,6 @@
 """Scene datasets: device-resident frame arrays + fixed-shape batch assembly.
 
-Rebuilds ``nvsf/nerf/dataset/base_dataset.py`` TPU-first: instead of a torch
+Rebuilds ``nvsf/nerf/dataset/base_dataset.py`` device-first: instead of a torch
 DataLoader whose collate samples rays on host every step
 (``base_dataset.py:303-428``), all frames are preloaded once into device
 arrays (the reference's ``preload`` path, ``base_dataset.py:262-290``) and

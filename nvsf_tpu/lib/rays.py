@@ -1,6 +1,6 @@
 """Ray generation for LiDAR panos and pinhole cameras (pure jnp, jit-safe).
 
-Rebuilds ``nvsf/nerf/dataset/dataset_utils.py:369-687`` TPU-first: direction
+Rebuilds ``nvsf/nerf/dataset/dataset_utils.py:369-687`` device-first: direction
 math is a pure function of flat pixel indices so the whole sampling + gather
 path fuses into the jitted train step (the reference runs this per-batch on
 host inside the DataLoader collate).
@@ -54,8 +54,12 @@ def rays_from_pose(pose, directions):
 
     pose: [4, 4] sensor2world;  directions: [N, 3] local.
     Returns (rays_o [N, 3], rays_d [N, 3]) — ``dataset_utils.py:528-530``.
+
+    The 3x3 rotation is written out as elementwise products: as a matmul
+    the GPU would run it in TF32 (~1e-3 relative), moving samples at 80 m
+    by centimetres.
     """
-    rays_d = directions @ pose[:3, :3].T
+    rays_d = sum(directions[:, k:k + 1] * pose[:3, k] for k in range(3))
     rays_o = jnp.broadcast_to(pose[:3, 3], rays_d.shape)
     return rays_o, rays_d
 

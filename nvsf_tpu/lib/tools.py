@@ -5,6 +5,8 @@ from __future__ import annotations
 import csv
 import json
 import os
+import struct
+import zlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -90,3 +92,33 @@ def write_pcd(path, points, intensities=None):
             if has_i:
                 row += f" {inten[i]:.6f}"
             f.write(row + "\n")
+
+
+def write_png(path, img):
+    """Write an 8-bit grayscale [H, W] or RGB/RGBA [H, W, 3|4] image as PNG
+    with the standard library alone (zlib + struct)."""
+    a = np.ascontiguousarray(img)
+    if a.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 images, got {a.dtype}")
+    if a.ndim == 3 and a.shape[2] == 1:
+        a = a[..., 0]
+    color = {2: 0, 3: {3: 2, 4: 6}.get(a.shape[-1])}.get(a.ndim)
+    if color is None:
+        raise ValueError(f"write_png takes [H, W] or [H, W, 3|4], got "
+                         f"{a.shape}")
+    h, w = a.shape[:2]
+    # every scanline starts with filter type 0 (none)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, -1)],
+                         axis=1).tobytes()
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))

@@ -2,7 +2,7 @@
 shared flow net + sigma net, LiDAR intensity & ray-drop heads, camera color
 head (rebuilds ``nvsf/nerf/models/network_dynamic.py``).
 
-TPU-first notes:
+Design notes:
   - The reference branches on the host int ``frame_idx`` for the ±1-frame
     temporal warp (``network_dynamic.py:242-271``); here both warp queries
     are always computed and blended with traced boundary masks so the whole
@@ -10,8 +10,7 @@ TPU-first notes:
   - ``torch.no_grad()`` on the warped *hash* queries (grad flows to the flow
     net only through the K-planes) maps to ``jax.lax.stop_gradient``.
   - Masked color inference (``network_dynamic.py:290-332``) is dense compute
-    + mask multiply: on TPU, computing all lanes beats gather/scatter
-    compaction at these sizes.
+    + mask multiply instead of gather/scatter compaction.
 """
 
 from __future__ import annotations
@@ -61,10 +60,7 @@ class NVSFFieldSpec:
     n_levels_hash: int = 8
     n_features_per_level_hash: int = 4
     log2_hashmap_size: int = 19
-    # per-plane (xyt, xzt, yzt) dynamic hash sizes (``hash_field.py:101``).
-    # On v5e the fused 3-query dynamic gather is the single largest step op;
-    # shrinking the folded table under XLA's ~1.5 MB VMEM-resident gather
-    # threshold roughly doubles its row rate (VALIDATION.md gather table).
+    # per-plane (xyt, xzt, yzt) dynamic hash sizes (``hash_field.py:101``)
     hash_size_dynamic: Tuple[int, int, int] = (15, 13, 13)
     # MLPs
     num_layers_flow: int = 3
@@ -258,9 +254,8 @@ class NVSFFieldSpec:
         plane_d = 0.5 * plane_d + 0.25 * (plane_1 + plane_2)
         hash_d = 0.5 * hash_d + 0.25 * (hash_1 + hash_2)
 
-        # NO feature concat: minor-dim concat of 32/32/32/24-wide blocks
-        # costs ~300ms at 262k samples on v5e (lane relayout); the sigma
-        # net's first layer is split per block instead (apply_blocks)
+        # NO feature concat: the sigma net's first layer is split per
+        # block instead (apply_blocks)
         h = self.sigma_spec.apply_blocks(
             params["sigma_net"], [plane_s, plane_d, hash_s, hash_d],
             compute_dtype).astype(jnp.float32)
@@ -275,13 +270,11 @@ class NVSFFieldSpec:
 
         The reference evaluates the two branches in separate render calls
         (``network_dynamic.py:213-287`` invoked per modality from
-        ``trainer.py:193-200,491-499``); on TPU each un-fused encoder
-        family pays the measured ~2.5x per-row penalty of multiple gather
-        ops per program, so the joint step fuses per family:
+        ``trainer.py:193-200,491-499``); this joint path fuses per family:
           - one static-hash gather over both branches' tables,
           - one dynamic-hash gather over 2 branches x 3 temporal queries,
-          - one K-planes one-hot-MXU dispatch for statics and one for all
-            6 dynamic queries,
+          - one K-planes multi-corner sampler call for statics and one for
+            all 6 dynamic queries,
           - one flow evaluation over the concatenated points (the flow net
             is SHARED between branches, ``network_dynamic.py:117-122``),
           - one shared sigma-net matmul batch.

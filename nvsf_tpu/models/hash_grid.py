@@ -7,16 +7,14 @@ Replaces the reference's external tiny-cuda-nn ``HashGrid`` encodings:
   - the flow field's 3D grid + temporal Lagrange basis
     (``flow_field.py:68-84,105-114``)
 
-Design notes (TPU-first):
+Design notes:
   - Tables are stored as single 2D arrays [F, L*T] (features x concatenated
-    per-level tables): clean 2D params avoid TPU (8, 128) tile padding on
-    every param/EMA/Adam copy, and ALL levels' lookups become one fused
-    gather. Levels whose dense grid fits in T entries are dense-indexed;
-    finer levels use the instant-ngp spatial hash.
+    per-level tables): ALL levels' lookups become one fused gather. Levels
+    whose dense grid fits in T entries are dense-indexed; finer levels use
+    the instant-ngp spatial hash.
   - Gathers go through ``nvsf_tpu.ops.gather.table_gather``: forward is the
-    XLA dynamic-gather (row-count bound, ~200M rows/s on v5e); backward is
-    the scatter-free sort + MXU one-hot-matmul segment sum
-    (``nvsf_tpu/ops/segsum.py``, ~4.6x over XLA scatter-add).
+    XLA gather; backward is the XLA scatter-add of
+    ``nvsf_tpu/ops/segsum.py``.
   - TIME FOLDING: within one training/render step the query time t is a
     SCALAR, and everything the reference does after the lookup — the
     adjacent-time-bin lerp of ``HashGridT.forward`` and the Lagrange
@@ -130,9 +128,8 @@ class HashEncodingSpec:
         return self.n_levels * self.table_size
 
     def init(self, key):
-        # tcnn init: U(-1e-4, 1e-4). Stored [F, L*T]: no TPU (8, 128) tile
-        # padding on param/EMA/Adam copies, and all levels' lookups are one
-        # gather along the column axis.
+        # tcnn init: U(-1e-4, 1e-4). Stored [F, L*T]: all levels' lookups
+        # are one gather along the column axis.
         return jax.random.uniform(
             key,
             (self.n_features_per_level, self.n_levels * self.table_size),
@@ -144,7 +141,7 @@ class HashEncodingSpec:
 
         x: [N, D] in [0, 1] -> (cols [L*C*N] int32 global column ids,
         wc [L, C, N] trilinear corner weights). Large intermediates keep N
-        LAST so TPU (8, 128) tiling never pads the small (L, C) dims.
+        last.
         """
         D = self.dim
         L = self.n_levels
@@ -211,7 +208,7 @@ class HashGridTSpec:
     """Time-binned 2D hash grids with linear interp across adjacent bins
     plus Lagrange feature-basis interp (``hash_field.py:29-88``).
 
-    TPU redesign: t is scalar per query batch, so the bin lerp AND the
+    Redesign: t is scalar per query batch, so the bin lerp AND the
     Lagrange blend are folded into one [F/B, L*T] table before the gather
     (see module docstring) — one narrow row per corner instead of two wide
     ones, and a 4x narrower backward segment-sum.
@@ -321,11 +318,9 @@ class HashGrid4DSpec:
     def apply_static_joint(self, params_list, x_list):
         """Static 3D hash for SEVERAL branches (e.g. LiDAR + camera) in ONE
         fused gather: per-branch tables are lane-concatenated and every
-        branch's corner columns offset into its segment. Multiple gather
-        ops in one XLA program measured ~2.5x slower per row than a single
-        fused gather on v5e, and the joint train step pays that per family
-        without this. Both branches' tables carry gradients (one backward
-        segment-sum over the concatenated width).
+        branch's corner columns offset into its segment. Both branches'
+        tables carry gradients (one backward segment-sum over the
+        concatenated width).
 
         Matches the per-branch encoder selection of
         ``network_dynamic.py:67-105`` with shared gather machinery.
@@ -399,9 +394,8 @@ class HashGrid4DSpec:
     def apply_dynamic_fused3(self, params, x, x1, x2, t, t1, t2):
         """The t-query and BOTH temporal-warp queries in ONE fused gather.
 
-        Multiple gather ops in one XLA program measured ~2.5x slower per
-        row than a single fused gather on v5e (VALIDATION.md), so the three
-        queries' columns are concatenated against the three folded tables.
+        The three queries' columns are concatenated against the three
+        folded tables.
         Only the t-query carries gradients (``n_grad``); the warp queries
         replicate the reference's ``torch.no_grad`` re-queries
         (``network_dynamic.py:245-271``) — their positions, tables, and

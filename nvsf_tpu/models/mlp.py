@@ -1,9 +1,8 @@
-"""Small MXU-friendly MLPs (pure-pytree params).
+"""Small MLPs (pure-pytree params).
 
 Replaces the reference's tcnn ``FullyFusedMLP`` heads
-(``network_dynamic.py:125-189``): 64-wide ReLU MLPs whose matmuls map
-directly onto the MXU; under jit XLA fuses the chain, so a hand-written
-"fully fused" kernel is unnecessary at these widths.
+(``network_dynamic.py:125-189``): 64-wide ReLU MLPs as plain matmuls that
+XLA compiles and fuses under jit.
 """
 
 from __future__ import annotations
@@ -63,12 +62,10 @@ class MLPSpec:
     def apply_blocks(self, params, blocks, compute_dtype=jnp.float32):
         """Like ``apply(params, concat(blocks, -1))`` WITHOUT the concat.
 
-        Concatenating narrow feature blocks along the lane (minor) dim is
-        catastrophically slow on TPU when the block widths are not 128-lane
-        aligned (measured ~300 ms for a [262k, 32+32+32+24] concat on v5e —
-        XLA's minor-dim concat relayout). The first linear layer is linear
-        in each block, so its weight rows are split per block and the
-        partial matmuls summed instead: zero concat, same math.
+        The first linear layer is linear in each block, so its weight rows
+        are split per block and the partial matmuls summed instead of
+        concatenating narrow feature blocks along the minor dim: zero
+        concat, same math.
         """
         w0 = params[0]["w"]
         h = None

@@ -6,15 +6,11 @@ bilinear lookups with align_corners=True + border padding, static planes
 (xy, xz, yz) and dynamic planes (xt, yt, zt) reduced by product over the
 3 planes of each group, features concatenated across scales.
 
-TPU note: plane tables are SMALL (<= 256*256 slots), and XLA's TPU
-gather/scatter emits a fast vectorized path for small tables (~2-3G
-rows/s gather, ~130M upd/s scatter measured on v5e — vs ~200M/s / ~16M/s
-for the multi-megabyte hash tables). Per-plane ``jnp.take`` + autodiff is
-therefore FASTER here than routing through the fused big-table gather +
-sort-based segment-sum used by the hash grids (measured: fusing all planes
-into one concatenated table cost 4x on the forward). The temporal-warp
-queries are instead batched by concatenating their POINTS — time is a
-plane coordinate, so all queries share one table pass.
+Plane tables are SMALL (<= 256*256 slots): fine scales use per-plane
+gathers with autodiff backward, coarse scales and the time-folded dynamic
+planes go through the multi-corner sampler of ``ops/multihot.py``. The
+temporal-warp queries are batched by concatenating their POINTS — time is
+a plane coordinate, so all queries share one table pass.
 """
 
 from __future__ import annotations
@@ -38,8 +34,8 @@ def _bilinear_sample_fmajor(plane_flat: jnp.ndarray, H: int, W: int,
     (u in [0,1] -> W axis, v in [0,1] -> H axis) with align_corners=True +
     border clamping — F.grid_sample semantics of ``planes_field.py:55-83``.
 
-    Planes are stored 2D [F, H*W] (not [F, H, W]) so the TPU (8, 128) tile
-    never pads a small minor axis; returns features-major [F, N]."""
+    Planes are stored 2D [F, H*W] (not [F, H, W]); returns features-major
+    [F, N]."""
     x = jnp.clip(u, 0.0, 1.0) * (W - 1)
     y = jnp.clip(v, 0.0, 1.0) * (H - 1)
     x0 = jnp.floor(x).astype(jnp.int32)
@@ -114,8 +110,7 @@ class Planes4DSpec:
 
     def init(self, key):
         """Planes stored as [scale][ci] arrays of FLAT shape [F, res_b*res_a]
-        for coo_comb (a, b) (2D storage avoids TPU tile padding of small
-        minor axes) — time planes init to ones, spatial U(0.1, 0.5)
+        for coo_comb (a, b) — time planes init to ones, spatial U(0.1, 0.5)
         (``planes_field.py:31-52``)."""
         params = []
         keys = jax.random.split(key, len(self.multiscale_res) * 6).reshape(
@@ -167,8 +162,8 @@ class Planes4DSpec:
             return dynamic
         return static, dynamic
 
-    # largest per-segment table the one-hot MXU sampler beats XLA
-    # gather+scatter for (see ops/multihot.py; MXU tile-ops scale with W)
+    # largest per-segment table sampled through ops/multihot.py; finer
+    # static scales use per-plane gathers
     MULTIHOT_MAX_W = 4096
 
     def apply(self, params, xt):
@@ -178,9 +173,9 @@ class Planes4DSpec:
 
     def apply_static(self, params, xt):
         """Static (xy/xz/yz) group: coarse scales (tables <= MULTIHOT_MAX_W
-        slots) sample via the 4-corner one-hot MXU kernel (positions carry
-        no gradient here -> need_dw=False); fine scales keep XLA's fast
-        small-table bilinear gathers."""
+        slots) sample via the 4-corner multi-corner sampler (positions
+        carry no gradient here -> need_dw=False); fine scales keep
+        per-plane bilinear gathers."""
         from nvsf_tpu.ops.multihot import multihot_sample
 
         S = len(self.multiscale_res)
@@ -205,14 +200,11 @@ class Planes4DSpec:
                     cols.append(c4)
                     ws.append(w4)
             SP = len(tables)
-            pad = (-N) % 512
-            cols = jnp.pad(jnp.stack(cols).reshape(1, SP, 4, N),
-                           ((0, 0), (0, 0), (0, 0), (0, pad)))
-            ws = jnp.pad(jnp.stack(ws).reshape(1, SP, 4, N),
-                         ((0, 0), (0, 0), (0, 0), (0, pad)))
+            cols = jnp.stack(cols).reshape(1, SP, 4, N)
+            ws = jnp.stack(ws).reshape(1, SP, 4, N)
             feats = multihot_sample(jnp.concatenate(tables, axis=1), cols,
                                     ws, self.MULTIHOT_MAX_W, need_dw=False)
-            feats = feats[0, :, :, :N].reshape(len(coarse), len(_STATIC),
+            feats = feats[0].reshape(len(coarse), len(_STATIC),
                                                F, N)
             feats = jnp.prod(feats, axis=1)              # [n_coarse, F, N]
             for k, si in enumerate(coarse):
@@ -233,8 +225,8 @@ class Planes4DSpec:
         return self.apply_dynamic_multi(params, xt[None])[0]
 
     def apply_static_joint(self, params_list, xt_list):
-        """``apply_static`` for several branches sharing ONE one-hot-MXU
-        kernel call (coarse scales) and fused per-plane gathers over
+        """``apply_static`` for several branches sharing ONE multi-corner
+        sampler call (coarse scales) and fused per-plane gathers over
         lane-concatenated tables (fine scales). Returns one [N_i, S*F]
         array per branch; all branches' tables carry gradients."""
         from nvsf_tpu.ops.multihot import multihot_sample
@@ -266,14 +258,11 @@ class Planes4DSpec:
                                                  (0, Np - ns[bi]))))
                         ws.append(jnp.pad(w4, ((0, 0), (0, Np - ns[bi]))))
             SP = len(tables)
-            pad = (-Np) % 512
-            cols = jnp.pad(jnp.stack(cols).reshape(1, SP, 4, Np),
-                           ((0, 0), (0, 0), (0, 0), (0, pad)))
-            ws = jnp.pad(jnp.stack(ws).reshape(1, SP, 4, Np),
-                         ((0, 0), (0, 0), (0, 0), (0, pad)))
+            cols = jnp.stack(cols).reshape(1, SP, 4, Np)
+            ws = jnp.stack(ws).reshape(1, SP, 4, Np)
             feats = multihot_sample(jnp.concatenate(tables, axis=1), cols,
                                     ws, self.MULTIHOT_MAX_W, need_dw=False)
-            feats = feats[0, :, :, :Np].reshape(B, len(coarse),
+            feats = feats[0].reshape(B, len(coarse),
                                                 len(_STATIC), F, Np)
             feats = jnp.prod(feats, axis=2)     # [B, n_coarse, F, Np]
             for bi in range(B):
@@ -323,7 +312,7 @@ class Planes4DSpec:
                 for bi in range(B)]
 
     # ------------------------------------------------------------------
-    # dynamic (time) planes: scalar-t fold + MXU one-hot sampling
+    # dynamic (time) planes: scalar-t fold + multi-corner sampling
     # ------------------------------------------------------------------
     DYN_W_PAD = 256   # uniform folded-table lane width
 
@@ -333,15 +322,15 @@ class Planes4DSpec:
 
         The time coordinate is SCALAR per query, so the t-lerp of each
         (x/y/z, t) plane folds into its table rows, leaving a 1-D lerp over
-        tiny (<=256-col) tables — computed as in-register one-hot matmuls
-        (``ops/multihot.py``): no gathers, no scatter backward. Gradients
+        tiny (<=256-col) tables, sampled in one call of
+        ``ops/multihot.py`` for all queries, scales and planes. Gradients
         reach the tables and, through the lerp weights, the warped
         positions (the flow field)."""
         return self.apply_dynamic_multi_branches([params], [xts])[0]
 
     def apply_dynamic_multi_branches(self, params_list, xts_list):
         """``apply_dynamic_multi`` for SEVERAL branches (one params + one
-        [Q_i, N_i, 4] query stack each) sharing ONE one-hot-MXU kernel
+        [Q_i, N_i, 4] query stack each) sharing ONE multi-corner sampler
         call — the joint LiDAR+camera step folds all 6 temporal queries
         into a single sampler dispatch. Returns one [Q_i, N_i, 32] array
         per branch."""
@@ -366,7 +355,7 @@ class Planes4DSpec:
                         H, W = self.plane_hw(si, ci)
                         assert W <= W_PAD, (
                             f"dynamic plane (scale {si}, plane {ci}) "
-                            f"spatial width {W} exceeds the one-hot "
+                            f"spatial width {W} exceeds the "
                             f"sampler width DYN_W_PAD={W_PAD}; reduce "
                             f"resolution x multiscale factor or raise "
                             f"Planes4DSpec.DYN_W_PAD")
@@ -394,15 +383,13 @@ class Planes4DSpec:
         tables = jnp.concatenate(folded, axis=1)     # [F, sumQ*12*W_PAD]
         SP = S * len(_DYNAMIC)
         Qt = sum(qs)
-        pad = (-Np) % 512
 
         def prep(parts, dtype):
-            x = jnp.stack(parts).reshape(Qt, SP, 2, Np).astype(dtype)
-            return jnp.pad(x, ((0, 0), (0, 0), (0, 0), (0, pad)))
+            return jnp.stack(parts).reshape(Qt, SP, 2, Np).astype(dtype)
 
         feats = multihot_sample(tables, prep(cols, jnp.int32),
                                 prep(ws, jnp.float32), W_PAD)
-        feats = feats[..., :Np].reshape(Qt, S, len(_DYNAMIC), F, Np)
+        feats = feats.reshape(Qt, S, len(_DYNAMIC), F, Np)
         feats = jnp.prod(feats, axis=2)              # [Qt, S, F, Np]
         # -> [Qt, Np, S*F] scale-major features
         feats = jnp.transpose(feats.reshape(Qt, S * F, Np), (0, 2, 1))

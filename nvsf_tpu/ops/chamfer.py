@@ -1,20 +1,22 @@
-"""Chamfer distance as a tiled nearest-neighbor reduction (XLA/MXU).
+"""Chamfer distance as a tiled nearest-neighbor reduction in XLA.
 
 Replaces the reference's CUDA extension (``nvsf/nerf/chamfer3D/chamfer3D.cu``,
 ``dist_chamfer_3D.py:41-97``): squared-distance NN both ways. The pairwise
-distances are computed as |a|^2 + |b|^2 - 2 a.b^T so the inner loop is a
-matmul on the MXU; the min-reduction streams over blocks of the second cloud
-via ``lax.scan``, so memory stays O(N * block) for arbitrarily large clouds.
-Gradients come free via autodiff of the min (subgradient to the argmin),
-matching the CUDA backward's +-2g(x1-x2) scatter.
+squared distance is summed directly over the 3 coordinates,
+``(ax-bx)^2 + (ay-by)^2 + (az-bz)^2``: elementwise work that XLA fuses into
+the min-reduction, with no cancellation. (The expansion
+``|a|^2 + |b|^2 - 2 a.b`` loses metres^2 at 80 m when its matmul runs in
+TF32, the GPU's default for float32 products.) The min-reduction streams
+over blocks of the second cloud via ``lax.scan``, so memory stays
+O(N * block) for arbitrarily large clouds. Gradients come free via
+autodiff of the min (subgradient to the argmin), matching the CUDA
+backward's +-2g(x1-x2) scatter.
 
 Supports padded/masked clouds (fixed shapes for jit): masked-out points get
 +inf as neighbors and zero as queries.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -24,10 +26,8 @@ _BIG = 1e10
 
 def _pairwise_min_dist2(a, b, b_valid):
     """a: [N, 3], b: [M, 3] -> per-a min squared distance to valid b."""
-    a2 = jnp.sum(a * a, axis=-1, keepdims=True)              # [N, 1]
-    b2 = jnp.sum(b * b, axis=-1)[None, :]                    # [1, M]
-    d2 = a2 + b2 - 2.0 * (a @ b.T)                           # [N, M] (MXU)
-    d2 = jnp.where(b_valid[None, :], d2, _BIG)
+    d2 = sum((a[:, None, k] - b[None, :, k]) ** 2 for k in range(3))
+    d2 = jnp.where(b_valid[None, :], d2, _BIG)                # [N, M]
     return jnp.min(d2, axis=-1)
 
 
@@ -42,7 +42,7 @@ def min_dist2(a, b, b_mask=None, block_m: int = 4096):
     if b_mask is None:
         b_mask = jnp.ones((M,), bool)
     if M <= block_m:
-        return jnp.maximum(_pairwise_min_dist2(a, b, b_mask), 0.0)
+        return _pairwise_min_dist2(a, b, b_mask)
     pad = (-M) % block_m
     b_p = jnp.pad(b, ((0, pad), (0, 0)))
     m_p = jnp.pad(b_mask, (0, pad))
@@ -57,27 +57,17 @@ def min_dist2(a, b, b_mask=None, block_m: int = 4096):
 
     init = jnp.full((N,), _BIG, a.dtype)
     out, _ = jax.lax.scan(step, init, (b_blocks, m_blocks))
-    return jnp.maximum(out, 0.0)
+    return out
 
 
-def chamfer_distance(a, b, a_mask=None, b_mask=None, block_m: int = 4096,
-                     use_pallas: bool | None = None):
+def chamfer_distance(a, b, a_mask=None, b_mask=None, block_m: int = 4096):
     """Bidirectional squared chamfer (``dist_chamfer_3D.py:90-97`` API).
 
     Returns (dist1 [N], dist2 [M]): dist1[i] = min_j |a_i - b_j|^2 over valid
     b, zeroed at invalid a (and vice versa). Callers aggregate — the
     reference uses ``(dist1 + dist2).mean() * 0.5`` (``trainer.py:232-233``).
-
-    use_pallas: route through the VMEM-blocked Pallas kernel
-    (``ops/chamfer_pallas.py``) — gradient-free, so it serves the EVAL
-    meters (PointsMeter at ~68k x 68k); the training loss keeps this XLA
-    scan for its autodiff min-subgradient. Default: Pallas on TPU.
+    Serves both the training losses and the eval meter.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from nvsf_tpu.ops.chamfer_pallas import chamfer_distance_pallas
-        return chamfer_distance_pallas(a, b, a_mask, b_mask)
     d1 = min_dist2(a, b, b_mask, block_m)
     d2 = min_dist2(b, a, a_mask, block_m)
     if a_mask is not None:
@@ -87,16 +77,10 @@ def chamfer_distance(a, b, a_mask=None, b_mask=None, block_m: int = 4096,
     return d1, d2
 
 
-def chamfer_loss(a, b, a_mask=None, b_mask=None, block_m: int = 4096,
-                 use_pallas: bool = False):
+def chamfer_loss(a, b, a_mask=None, b_mask=None, block_m: int = 4096):
     """Mean symmetric chamfer: ``(dist1 + dist2).mean() * 0.5`` with proper
-    masked means.
-
-    ``use_pallas`` defaults to False (unlike ``chamfer_distance``): this is
-    a LOSS helper, and the Pallas kernel is gradient-free — the XLA path
-    keeps the autodiff min-subgradient for use inside ``jax.grad``."""
-    d1, d2 = chamfer_distance(a, b, a_mask, b_mask, block_m,
-                              use_pallas=use_pallas)
+    masked means."""
+    d1, d2 = chamfer_distance(a, b, a_mask, b_mask, block_m)
     if a_mask is None:
         m1 = d1.mean()
     else:

@@ -1,23 +1,20 @@
-"""Table gather with a scatter-free custom VJP.
+"""Table gather with a custom VJP.
 
 ``table_gather(table, cols)`` == ``jnp.take(table, cols, axis=1)`` for a
-features-major table ``[F, T]``, but its backward routes through
-``nvsf_tpu.ops.segsum.segment_add_fm`` (sort + MXU one-hot matmul) instead
-of XLA's serialized scatter-add. This is the TPU replacement for
-tiny-cuda-nn's fused encoder forward/backward
-(``/root/reference/nvsf/nerf/models/hash_field.py:108-133`` via tcnn).
+features-major table ``[F, T]``; its backward is the scatter-add
+``nvsf_tpu.ops.segsum.segment_add_fm``. This stands in for tiny-cuda-nn's
+fused encoder forward/backward (reference ``nerf/models/hash_field.py:108-133``
+via tcnn).
 
 ``n_grad`` supports FUSED gathers where only a prefix of the rows carries
 gradients: the temporal-warp hash queries (reference ``torch.no_grad``,
-``network_dynamic.py:245-271``) ride in the same gather as the t-query —
-multiple gather ops in one XLA program measured ~2.5x slower per row than
-one fused gather on v5e — while the backward sorts/accumulates ONLY the
-grad-carrying prefix. The cotangent of the stop-grad suffix never reaches
-the sort.
+``network_dynamic.py:245-271``) ride in the same gather as the t-query,
+while the backward accumulates ONLY the grad-carrying prefix. The
+cotangent of the stop-grad suffix never reaches the scatter.
 
-A further benefit over autodiff-of-take: the VJP residual is just the int32
-column vector — the gathered corner values are never saved, so encoder
-memory no longer forces rematerialization at large ray batches.
+The VJP residual is just the int32 column vector — the gathered corner
+values are never saved, so encoder memory does not force
+rematerialization at large ray batches.
 """
 
 from __future__ import annotations
@@ -37,9 +34,7 @@ def _make_gather(T: int, dtype_name: str, n_grad, grad_cols_T):
     @jax.custom_vjp
     def gather(table, cols):
         # promise_in_bounds: cols are constructed in-range; the default
-        # 'fill' mode emits a select_n whose layout demands force an extra
-        # [M, F] <-> [F, M] transpose pair around the gather fusion
-        # (measured 3.5x gather slowdown at 12.6M rows on v5e)
+        # 'fill' mode adds a bounds select around every gathered row
         return table.at[:, cols].get(mode="promise_in_bounds")
 
     def fwd(table, cols):

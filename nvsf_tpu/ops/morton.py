@@ -2,9 +2,9 @@
 
 Functional equivalents of the reference CUDA utilities
 (``raymarching.cu:183-330``: ``morton3D``, ``morton3D_invert``, ``packbits``)
-used by its occupancy-grid machinery. On TPU the occupancy grid is stored as
-a dense bool/float array (a bitfield buys nothing on vector hardware), but
-the Morton utilities are provided for layout parity and tooling.
+used by its occupancy-grid machinery. Here the occupancy grid is stored as
+a dense float array, and the Morton utilities are provided for layout
+parity and tooling.
 """
 
 from __future__ import annotations

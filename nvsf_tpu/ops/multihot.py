@@ -1,173 +1,42 @@
-"""Weighted multi-corner table sampling as in-register MXU one-hot matmuls.
+"""Weighted multi-corner sampling of many small per-segment tables.
 
 Generalization of the time-folded K-plane sampler: for C corners,
 
   forward : feat[n] = sum_c  w[c, n] * T[cols[c, n]]
-          == T_fm @ (sum_c onehot(cols_c) * w_c)            (per segment)
-  backward: dT = g @ wo^T        dw[c, n] = <T[:, cols[c, n]], g[:, n]>
+  backward: dT = scatter-add of w * g      dw[c, n] = <T[:, cols[c, n]], g[:, n]>
 
-applicable whenever the per-segment table is small enough to one-hot
-against (W <= ~4096 columns): the dynamic (time-folded) K-planes (C=2
-lerp corners over W<=256) and the COARSE static K-plane scales (C=4
-bilinear corners over W=H*W<=4096). No gathers, no scatters, no sorts —
-the tables sit in VMEM for the whole kernel, the one-hots are generated
-by iota compares, and both gradient paths (tables and the sample weights,
-through which the flow field learns) are the same matmuls transposed.
-
-Replaces what measured as ~0.5s of small XLA gathers + serialized
-scatter-adds in the v5e train-step profile.
+over a set of per-(query, segment) tables laid side by side in one
+features-major array. Serves the dynamic (time-folded) K-planes (C=2 lerp
+corners over W<=256 columns) and the coarse static K-plane scales (C=4
+bilinear corners over W=H*W<=4096). One gather over the concatenated
+tables replaces one small gather per plane; autodiff gives both gradient
+paths (tables, and the sample weights through which the flow field
+learns).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_CH = 512   # samples per grid step
 
 
-def _fwd_kernel(S, C, F, W, c_ref, w_ref, tbl_ref, out_ref):
-    q = pl.program_id(0)
-    for s in range(S):
-        rows = jax.lax.broadcasted_iota(jnp.int32, (W, _CH), 0)
-        wo = jnp.zeros((W, _CH), jnp.float32)
-        for c in range(C):
-            k = c_ref[0, s, c]                            # [CH] lanes
-            w = w_ref[0, s, c]
-            wo = wo + jnp.where(rows == k[None, :], 1.0, 0.0) * w[None, :]
-        tbl = tbl_ref[:, pl.ds((q * S + s) * W, W)]       # [F, W]
-        out_ref[0, s] = jnp.dot(tbl, wo,
-                                preferred_element_type=jnp.float32)
-
-
-def _bwd_kernel(S, C, F, W, need_dw, c_ref, w_ref, tbl_ref, g_ref,
-                dtbl_ref, dw_ref=None):
-    q = pl.program_id(0)
-    cc = pl.program_id(1)
-
-    @pl.when((q == 0) & (cc == 0))
-    def _():
-        dtbl_ref[:] = jnp.zeros_like(dtbl_ref)
-
-    for s in range(S):
-        g = g_ref[0, s]                                   # [F, CH]
-        rows = jax.lax.broadcasted_iota(jnp.int32, (W, _CH), 0)
-        wo = jnp.zeros((W, _CH), jnp.float32)
-        for c in range(C):
-            k = c_ref[0, s, c]
-            w = w_ref[0, s, c]
-            oh = jnp.where(rows == k[None, :], 1.0, 0.0)  # [W, CH]
-            wo = wo + oh * w[None, :]
-            if need_dw:
-                # dw[c, n] = <T[:, cols_c[n]], g[:, n]>
-                tbl = tbl_ref[:, pl.ds((q * S + s) * W, W)]
-                v = jnp.dot(tbl, oh, preferred_element_type=jnp.float32)
-                dw_ref[0, s, c] = jnp.sum(v * g, axis=0)
-        # dT_s [F, W] += g [F, CH] @ wo^T [CH, W]
-        dtbl_ref[:, pl.ds((q * S + s) * W, W)] += jax.lax.dot_general(
-            g, wo, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def _make_op(Q, S, C, Np, F, W, use_pallas, need_dw=True):
-    grid = (Q, Np // _CH)
-    total = Q * S * W
-    vmem = pltpu.CompilerParams(
-        vmem_limit_bytes=max(64 * 1024 * 1024,
-                             4 * (W * _CH * 3 + F * total * 2)))
-
-    def xla_path(tables, cols, ws):
-        if not need_dw:
-            # match the Pallas path's VJP semantics: zero weight gradients
-            ws = jax.lax.stop_gradient(ws)
-        seg = (jnp.arange(Q * S, dtype=jnp.int32) * W).reshape(Q, S, 1, 1)
-        g = (cols + seg).reshape(-1)
-        v = tables.at[:, g].get(mode="promise_in_bounds")   # [F, Q*S*C*Np]
-        v = v.reshape(F, Q, S, C, Np)
-        out = jnp.sum(ws[None] * v, axis=3)                 # [F, Q, S, Np]
-        return jnp.moveaxis(out, 0, 2)                      # [Q, S, F, Np]
-
-    if not use_pallas:
-        return xla_path
-
-    spec_c = pl.BlockSpec((1, S, C, _CH), lambda q, c: (q, 0, 0, c),
-                          memory_space=pltpu.VMEM)
-    spec_t = pl.BlockSpec((F, total), lambda q, c: (0, 0),
-                          memory_space=pltpu.VMEM)
-    spec_o = pl.BlockSpec((1, S, F, _CH), lambda q, c: (q, 0, 0, c),
-                          memory_space=pltpu.VMEM)
-
-    fwd_call = pl.pallas_call(
-        functools.partial(_fwd_kernel, S, C, F, W),
-        grid=grid,
-        in_specs=[spec_c, spec_c, spec_t],
-        out_specs=spec_o,
-        out_shape=jax.ShapeDtypeStruct((Q, S, F, Np), jnp.float32),
-        compiler_params=vmem,
-    )
-
-    if need_dw:
-        bwd_call = pl.pallas_call(
-            functools.partial(_bwd_kernel, S, C, F, W, True),
-            grid=grid,
-            in_specs=[spec_c, spec_c, spec_t, spec_o],
-            out_specs=[spec_t, spec_c],
-            out_shape=[
-                jax.ShapeDtypeStruct((F, total), jnp.float32),
-                jax.ShapeDtypeStruct((Q, S, C, Np), jnp.float32),
-            ],
-            compiler_params=vmem,
-        )
-    else:
-        bwd_tbl_only = pl.pallas_call(
-            functools.partial(_bwd_kernel, S, C, F, W, False),
-            grid=grid,
-            in_specs=[spec_c, spec_c, spec_t, spec_o],
-            out_specs=spec_t,
-            out_shape=jax.ShapeDtypeStruct((F, total), jnp.float32),
-            compiler_params=vmem,
-        )
-
-    @jax.custom_vjp
-    def op(tables, cols, ws):
-        return fwd_call(cols, ws, tables)
-
-    def fwd(tables, cols, ws):
-        return op(tables, cols, ws), (tables, cols, ws)
-
-    def bwd(res, g):
-        tables, cols, ws = res
-        if need_dw:
-            d_tbl, d_w = bwd_call(cols, ws, tables, g.astype(jnp.float32))
-        else:
-            d_tbl = bwd_tbl_only(cols, ws, tables, g.astype(jnp.float32))
-            d_w = jnp.zeros_like(ws)
-        return d_tbl, None, d_w
-
-    op.defvjp(fwd, bwd)
-    return op
-
-
-def multihot_sample(tables, cols, ws, seg_width: int,
-                    use_pallas: bool | None = None,
-                    need_dw: bool = True):
-    """tables: [F, Q * S * seg_width] lane-concatenated per-(query, segment)
+def multihot_sample(tables, cols, ws, seg_width: int, need_dw: bool = True):
+    """tables: [F, Q * S * seg_width] side-by-side per-(query, segment)
     tables; cols: [Q, S, C, Np] int32 LOCAL columns in [0, seg_width);
-    ws: matching f32 weights. Np must be a multiple of 512.
+    ws: matching f32 weights.
     Returns [Q, S, F, Np] = sum_c ws_c * T[cols_c].
     Gradients flow to ``tables`` and (when ``need_dw``) ``ws`` — pass
     need_dw=False when the sample positions carry no gradient (e.g. the
-    unwarped static-plane query) to skip a per-corner MXU pass."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    unwarped static-plane query)."""
     Q, S, C, Np = cols.shape
     F = tables.shape[0]
     assert tables.shape[1] == Q * S * seg_width, (tables.shape, Q, S,
                                                   seg_width)
-    return _make_op(Q, S, C, Np, F, seg_width, use_pallas,
-                    need_dw)(tables, cols, ws)
+    if not need_dw:
+        ws = jax.lax.stop_gradient(ws)
+    seg = (jnp.arange(Q * S, dtype=jnp.int32) * seg_width).reshape(Q, S, 1, 1)
+    g = (cols + seg).reshape(-1)
+    v = tables.at[:, g].get(mode="promise_in_bounds")     # [F, Q*S*C*Np]
+    v = v.reshape(F, Q, S, C, Np)
+    out = jnp.sum(ws[None] * v, axis=3)                   # [F, Q, S, Np]
+    return jnp.moveaxis(out, 0, 2)                        # [Q, S, F, Np]

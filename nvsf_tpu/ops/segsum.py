@@ -1,341 +1,23 @@
-"""Scatter-free segment accumulation for hash/plane table gradients.
+"""Segment accumulation for hash/plane table gradients.
 
 ``segment_add_fm(cols, vals, T)`` computes ``zeros([F, T]).at[:, cols].add(vals)``
-— the backward of a table gather — WITHOUT an XLA scatter. XLA's TPU
-scatter-add is serialized (~16M updates/s measured on v5e regardless of
-sortedness/uniqueness, see VALIDATION.md); this path replaces it with
-
-  1. one multi-operand ``lax.sort`` keyed on the table column (~600M keys/s),
-  2. a ``searchsorted`` for per-table-block offsets into the sorted stream,
-  3. a Pallas kernel that, for each table block of ``B`` slots, DMAs the
-     block's slice of the sorted stream and accumulates it with one-hot
-     matmuls on the MXU (the one-hot is generated in-register from an iota
-     compare, so the "scatter" becomes dense matrix work).
-
-Measured on v5e: 8.4M updates -> 2M slots, F=8: ~111 ms vs ~511 ms for the
-XLA scatter (4.6x); the sort is ~14 ms of that.
-
-This replaces the gradient half of tiny-cuda-nn's fused hash-encoder CUDA
-kernels (atomic fp16 adds, ``/root/reference/nvsf/nerf/models/hash_field.py:108-133``
-via tcnn) with a TPU-native sort+MXU formulation.
-
-Numerics: the MXU one-hot matmul runs two bf16 passes (value split into
-bf16 high/low parts; the one-hot factor is exact in bf16), giving ~2^-17
-relative error — tighter than tcnn's fp16 atomics. Tests compare against
-the exact XLA scatter with atol=1e-4.
+— the backward of a features-major table gather. XLA lowers the scatter-add
+to atomic adds on the GPU, the same mechanism tiny-cuda-nn's fused
+hash-encoder backward uses (reference ``nerf/models/hash_field.py:108-133``
+via tcnn). Sums are float32; the order of the atomic adds, and so the last
+bits of a sum, varies from run to run.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_ROW = 1024        # i32 1-D HBM tile: slices must be 1024-element aligned
-_CPR = 8           # key rows per chunk (8-row HBM tile alignment)
-_CH = _CPR * _ROW  # updates per DMA chunk
 
 
-def _kernel(B, F, off_ref, keys_hbm, vals_hbm, out_ref, kbuf, vbuf, sems):
-    b = pl.program_id(0)
-    start = off_ref[b]
-    end = off_ref[b + 1]
-    base = b * B
-    r0 = (start // _CH) * _CPR          # chunk-aligned first key row
-    n_it = (end - r0 * _ROW + _CH - 1) // _CH
-
-    def dma_k(slot, it):
-        return pltpu.make_async_copy(
-            keys_hbm.at[pl.ds(r0 + it * _CPR, _CPR), :],
-            kbuf.at[slot], sems.at[slot, 0])
-
-    def dma_v(slot, it):
-        return pltpu.make_async_copy(
-            vals_hbm.at[:, pl.ds((r0 + it * _CPR) * _ROW, _CH)],
-            vbuf.at[slot], sems.at[slot, 1])
-
-    @pl.when(n_it > 0)
-    def _():
-        dma_k(0, 0).start()
-        dma_v(0, 0).start()
-
-    def body(it, acc):
-        slot = jax.lax.rem(it, 2)
-        nxt = jax.lax.rem(it + 1, 2)
-
-        @pl.when(it + 1 < n_it)
-        def _():
-            dma_k(nxt, it + 1).start()
-            dma_v(nxt, it + 1).start()
-
-        dma_k(slot, it).wait()
-        dma_v(slot, it).wait()
-        for j in range(_CPR):
-            k = kbuf[slot, j]                               # [1024]
-            v = vbuf[slot][:, j * _ROW:(j + 1) * _ROW]      # [F, 1024]
-            cols = jax.lax.broadcasted_iota(jnp.int32, (B, _ROW), 0) + base
-            # keys outside [base, base+B) (pre-start alignment junk, the
-            # next block's data, or the T sentinel padding) simply fail the
-            # compare — the one-hot IS the block filter.
-            oh = jnp.where(k[None, :] == cols, 1.0, 0.0)    # [B, 1024]
-            dn = (((1,), (1,)), ((), ()))
-            # split-2 product: one-hot is exact in bf16, so splitting v into
-            # bf16 high+low parts gives ~f32 accuracy in 2 MXU passes
-            # (Mosaic supports only DEFAULT / HIGHEST=6 passes).
-            vh = v.astype(jnp.bfloat16).astype(jnp.float32)
-            vl = v - vh
-            acc = acc + jax.lax.dot_general(
-                vh, oh, dimension_numbers=dn,
-                preferred_element_type=jnp.float32)
-            acc = acc + jax.lax.dot_general(
-                vl, oh, dimension_numbers=dn,
-                preferred_element_type=jnp.float32)
-        return acc
-
-    acc = jax.lax.fori_loop(0, n_it, body, jnp.zeros((F, B), jnp.float32))
-    out_ref[:] = acc
-
-
-def _kernel_packed(B, F, off_ref, keys_hbm, vals_hbm, out_ref, kbuf, vbuf,
-                   sems):
-    """Packed-payload variant: values arrive as bf16 PAIRS packed in int32
-    rows (f0 in the low 16 bits, f1 in the high 16), halving both the sort
-    payload and the DMA. bf16 x exact-one-hot products need only ONE MXU
-    pass (DEFAULT precision rounds to bf16 — the values already are)."""
-    P = (F + 1) // 2
-    b = pl.program_id(0)
-    start = off_ref[b]
-    end = off_ref[b + 1]
-    base = b * B
-    r0 = (start // _CH) * _CPR
-    n_it = (end - r0 * _ROW + _CH - 1) // _CH
-
-    def dma_k(slot, it):
-        return pltpu.make_async_copy(
-            keys_hbm.at[pl.ds(r0 + it * _CPR, _CPR), :],
-            kbuf.at[slot], sems.at[slot, 0])
-
-    def dma_v(slot, it):
-        return pltpu.make_async_copy(
-            vals_hbm.at[:, pl.ds((r0 + it * _CPR) * _ROW, _CH)],
-            vbuf.at[slot], sems.at[slot, 1])
-
-    @pl.when(n_it > 0)
-    def _():
-        dma_k(0, 0).start()
-        dma_v(0, 0).start()
-
-    def body(it, acc):
-        slot = jax.lax.rem(it, 2)
-        nxt = jax.lax.rem(it + 1, 2)
-
-        @pl.when(it + 1 < n_it)
-        def _():
-            dma_k(nxt, it + 1).start()
-            dma_v(nxt, it + 1).start()
-
-        dma_k(slot, it).wait()
-        dma_v(slot, it).wait()
-        for j in range(_CPR):
-            k = kbuf[slot, j]                                   # [1024]
-            vp = vbuf[slot][:, j * _ROW:(j + 1) * _ROW]         # [P, 1024]
-            # unpack bf16 pairs: f32 bits = bf16 bits << 16
-            lo = pltpu.bitcast(vp << 16, jnp.float32)           # even feats
-            hi = pltpu.bitcast(vp & jnp.int32(-65536), jnp.float32)
-            v = jnp.concatenate([lo, hi], axis=0)               # [2P, 1024]
-            cols = jax.lax.broadcasted_iota(jnp.int32, (B, _ROW), 0) + base
-            oh = jnp.where(k[None, :] == cols, 1.0, 0.0)        # [B, 1024]
-            acc = acc + jax.lax.dot_general(
-                v, oh, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)             # [2P, B]
-        return acc
-
-    acc = jax.lax.fori_loop(0, n_it, body,
-                            jnp.zeros((2 * P, B), jnp.float32))
-    out_ref[:] = acc
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3))
-def _segment_add_tpu_packed(cols, vals, T, B):
-    """bf16-packed path: ~2x cheaper sort + single-pass MXU accumulate.
-    Gradient values are rounded to bf16 before accumulation (comparable to
-    tcnn's fp16 atomic adds); sums accumulate in f32."""
-    F, M = vals.shape
-    P = (F + 1) // 2
-    Tp = -(-T // B) * B
-    NB = Tp // B
-
-    vb = vals.astype(jnp.bfloat16)
-    if F % 2:
-        vb = jnp.concatenate([vb, jnp.zeros((1, M), jnp.bfloat16)])
-    u = jax.lax.bitcast_convert_type(vb, jnp.uint16).astype(jnp.uint32)
-    packed = (u[1::2] << 16) | u[0::2]                   # [P, M] uint32
-    packed = packed.astype(jnp.int32)
-
-    ops = jax.lax.sort([cols.astype(jnp.int32)]
-                       + [packed[p] for p in range(P)], num_keys=1)
-    keys_s = ops[0]
-    block_starts = jnp.arange(NB, dtype=jnp.int32) * B
-    offs = jnp.searchsorted(keys_s, block_starts, side="left") \
-        .astype(jnp.int32)
-    offsets = jnp.concatenate([offs, jnp.full((1,), M, jnp.int32)])
-    pad = (-M) % _ROW + 2 * _CH
-    keys2d = jnp.concatenate(
-        [keys_s, jnp.full((pad,), Tp, jnp.int32)]).reshape(-1, _ROW)
-    vals_s = jnp.stack([
-        jnp.concatenate([ops[1 + p], jnp.zeros((pad,), jnp.int32)])
-        for p in range(P)])
-
-    out = pl.pallas_call(
-        functools.partial(_kernel_packed, B, F),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(NB,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.HBM),
-                      pl.BlockSpec(memory_space=pltpu.HBM)],
-            out_specs=pl.BlockSpec((2 * P, B), lambda b, off: (0, b),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.VMEM((2, _CPR, _ROW), jnp.int32),
-                pltpu.VMEM((2, P, _CH), jnp.int32),
-                pltpu.SemaphoreType.DMA((2, 2)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((2 * P, Tp), jnp.float32),
-    )(offsets, keys2d, vals_s)
-    # rows interleave [even feats | odd feats]; restore order and drop pad
-    even = out[:P, :T]
-    odd = out[P:, :T]
-    full = jnp.stack([even, odd], axis=1).reshape(2 * P, T)
-    return full[:F]
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3))
-def _segment_add_tpu(cols, vals, T, B):
-    F, M = vals.shape
-    Tp = -(-T // B) * B                  # pad table to a B multiple
-    NB = Tp // B
-
-    ops = jax.lax.sort([cols.astype(jnp.int32)]
-                       + [vals[f] for f in range(F)], num_keys=1)
-    keys_s = ops[0]
-    block_starts = jnp.arange(NB, dtype=jnp.int32) * B
-    offs = jnp.searchsorted(keys_s, block_starts, side="left") \
-        .astype(jnp.int32)
-    offsets = jnp.concatenate([offs, jnp.full((1,), M, jnp.int32)])
-    pad = (-M) % _ROW + 2 * _CH
-    keys2d = jnp.concatenate(
-        [keys_s, jnp.full((pad,), Tp, jnp.int32)]).reshape(-1, _ROW)
-    vals_s = jnp.stack([
-        jnp.concatenate([ops[1 + f], jnp.zeros((pad,), vals.dtype)])
-        for f in range(F)]).astype(jnp.float32)
-
-    out = pl.pallas_call(
-        functools.partial(_kernel, B, F),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(NB,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.HBM),
-                      pl.BlockSpec(memory_space=pltpu.HBM)],
-            out_specs=pl.BlockSpec((F, B), lambda b, off: (0, b),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.VMEM((2, _CPR, _ROW), jnp.int32),
-                pltpu.VMEM((2, F, _CH), jnp.float32),
-                pltpu.SemaphoreType.DMA((2, 2)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((F, Tp), jnp.float32),
-    )(offsets, keys2d, vals_s)
-    return out[:, :T]
-
-
-def _segment_add_xla(cols, vals, T):
-    """Reference path (exact): XLA scatter-add. Used off-TPU and in tests."""
-    F = vals.shape[0]
-    return jnp.zeros((F, T), vals.dtype).at[:, cols].add(vals)
-
-
-@functools.partial(jax.jit, static_argnums=(2,))
-def _segment_add_cumsum(cols, vals, T):
-    """Sort + prefix-sum + ONE boundary gather — no scatter, no Pallas.
-
-    After the packed sort, equal keys are adjacent, so each table slot's
-    sum is a difference of the f32 running prefix sum at its boundary
-    indices: ``out[:, t] = S[:, b[t+1]] - S[:, b[t]]`` with
-    ``b = searchsorted(keys_sorted, arange(T+1))``.
-
-    MEASURED NEGATIVE RESULT (v5e, 2026-08): this path is 6-10x SLOWER
-    than the packed one-hot-MXU Pallas kernel — 407 vs 65 ms at
-    F=8, M=8.4M, T=2M; 330 vs 24 ms at M=T=2M; 86 vs 9 ms at F=4,
-    M=1M, T=512k. XLA's long-axis f32 cumsum and the [F, T+1]
-    boundary gather dominate; the one-hot compares the Pallas kernel
-    pays are NOT its bottleneck. Kept as a portable scatter-free
-    fallback (works on any backend), never the TPU default.
-
-    Numerics: updates are rounded to bf16 by the packing (same as the
-    Pallas path / tcnn's fp16 atomics); the prefix sum accumulates in
-    f32, so slot sums see ~|running sum| * 2^-24 cancellation error —
-    comparable to the per-update bf16 rounding already accepted.
-    """
-    F, M = vals.shape
-    P = (F + 1) // 2
-
-    vb = vals.astype(jnp.bfloat16)
-    if F % 2:
-        vb = jnp.concatenate([vb, jnp.zeros((1, M), jnp.bfloat16)])
-    u = jax.lax.bitcast_convert_type(vb, jnp.uint16).astype(jnp.uint32)
-    packed = ((u[1::2] << 16) | u[0::2]).astype(jnp.int32)   # [P, M]
-
-    ops = jax.lax.sort([cols.astype(jnp.int32)]
-                       + [packed[p] for p in range(P)], num_keys=1)
-    keys_s = ops[0]
-    vp = jnp.stack(ops[1:])                                   # [P, M] i32
-    lo = jax.lax.bitcast_convert_type(
-        (vp << 16).astype(jnp.uint32), jnp.float32)           # even feats
-    hi = jax.lax.bitcast_convert_type(
-        (vp & jnp.int32(-65536)).astype(jnp.uint32), jnp.float32)
-    vals_s = jnp.stack([lo, hi], axis=1).reshape(2 * P, M)[:F]
-
-    S = jnp.cumsum(vals_s.astype(jnp.float32), axis=1)        # [F, M]
-    Se = jnp.concatenate([jnp.zeros((F, 1), jnp.float32), S], axis=1)
-    b = jnp.searchsorted(keys_s, jnp.arange(T + 1, dtype=jnp.int32)) \
-        .astype(jnp.int32)
-    G = Se.at[:, b].get(mode="promise_in_bounds")             # [F, T+1]
-    return G[:, 1:] - G[:, :-1]
-
-
-def pick_block(T: int) -> int:
-    """Table slots per kernel block. 1024 balances one-hot compare cost
-    (~M*B VPU ops) against DMA read amplification; the kernel pads T up to
-    a B multiple, so any T works."""
-    return 1024
-
-
-def segment_add_fm(cols: jnp.ndarray, vals: jnp.ndarray, T: int,
-                   use_pallas: bool | None = None,
-                   precision: str = "bf16") -> jnp.ndarray:
+def segment_add_fm(cols: jnp.ndarray, vals: jnp.ndarray, T: int) -> jnp.ndarray:
     """Sum update rows into a features-major table.
 
     cols: [M] int32 in [0, T); vals: [F, M] -> [F, T] with
-    ``out[:, t] = sum(vals[:, cols == t])``. Equivalent to
-    ``jnp.zeros((F, T)).at[:, cols].add(vals)`` but scatter-free on TPU.
-
-    precision: "bf16" (default on TPU) is the packed one-hot-MXU Pallas
-    kernel; "f32" keeps ~f32 exactness (split-2 MXU Pallas); "cumsum"
-    is a pure-XLA sort+prefix-sum alternative — measured 6-10x SLOWER
-    than the packed kernel on v5e (see its docstring), kept only as a
-    portable scatter-free fallback.
+    ``out[:, t] = sum(vals[:, cols == t])``.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if not use_pallas:
-        return _segment_add_xla(cols, vals, T)
-    if precision == "cumsum":
-        return _segment_add_cumsum(cols, vals, T)
-    if precision == "bf16":
-        return _segment_add_tpu_packed(cols, vals, T, pick_block(T))
-    return _segment_add_tpu(cols, vals, T, pick_block(T))
+    F = vals.shape[0]
+    return jnp.zeros((F, T), vals.dtype).at[:, cols].add(vals)

@@ -2,10 +2,10 @@
 
 The reference's distribution story is vestigial DDP scaffolding
 (``trainer.py:82-84,1506-1524``; never exercised). Here parallelism is
-TPU-native: a 1-D ``jax.sharding.Mesh`` over the 'data' axis; the per-step
-ray batch is shard-annotated along rays, parameters are replicated, and
-XLA's SPMD partitioner inserts the gradient ``psum`` over ICI — the direct
-analogue of DDP all-reduce, but compiled into the step.
+a 1-D ``jax.sharding.Mesh`` over the 'data' axis; the per-step ray batch is
+shard-annotated along rays, parameters are replicated, and XLA's SPMD
+partitioner inserts the gradient all-reduce (NCCL over NVLink on GPUs) —
+the direct analogue of DDP all-reduce, but compiled into the step.
 """
 
 from __future__ import annotations
@@ -63,9 +63,8 @@ def sample_shard_hint(mesh: Mesh):
     rays x samples). Re-asserting the data sharding at the renderer's
     flatten points keeps the SPMD partitioner from replicating encoder
     activations mid-chain: without it, the backward of the sample-axis
-    reshapes all-gathered every plane/hash gather output (measured ~120 MB
-    of all-gathers per 1024+1024-ray step; harmless over ICI but pure
-    waste, and 15x wall overhead on CPU meshes)."""
+    reshapes all-gathered every plane/hash gather output (~120 MB of
+    all-gathers per 1024+1024-ray step in the CPU-mesh HLO)."""
     def hint(a):
         if getattr(a, "ndim", 0) == 0 or a.shape[0] % mesh.size != 0:
             return a
@@ -83,7 +82,7 @@ _DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s64": 8,
 def collective_stats(compiled, per_op: bool = False) -> dict:
     """Collective-op counts + payload bytes from a compiled executable's
     HLO — the comm evidence for the sharded step (SURVEY §2.3: grads ride
-    an ICI all-reduce; eval gathers mirror ``trainer.py:1506-1524``).
+    an all-reduce; eval gathers mirror ``trainer.py:1506-1524``).
 
     Returns {op_kind: {"count": n, "bytes": payload}} for all-reduce /
     all-gather / reduce-scatter / collective-permute / all-to-all, plus
@@ -137,8 +136,7 @@ def collective_stats(compiled, per_op: bool = False) -> dict:
 def aggregate_collectives(ops, top: int = None):
     """Group collective_stats(per_op=True)['ops'] rows by (kind, cleaned
     op_name suffix), sorted by payload bytes — the shared attribution
-    formatter used by __graft_entry__.dryrun_multichip and
-    tools/mesh_walltime.py."""
+    formatter used by __graft_entry__.dryrun_multichip."""
     import re
 
     def clean(op_name):

@@ -1,6 +1,6 @@
 """Volume renderer: uniform z-sampling + alpha compositing, fully jittable.
 
-Rebuilds ``nvsf/nerf/models/renderer_dynamic.py`` TPU-first:
+Rebuilds ``nvsf/nerf/models/renderer_dynamic.py`` as static-shape XLA code:
   - ``near_far_from_aabb`` (the only live piece of the reference's CUDA
     raymarching extension, ``raymarching.cu:105-181``) is a vectorized slab
     test in jnp.
@@ -509,7 +509,7 @@ class RendererSpec:
         The K occupancy-compacted samples are composited in z-ordered slabs
         of ``slab`` samples inside a ``lax.while_loop`` that stops as soon
         as every ray in the batch has transmittance < ``trans_eps`` — the
-        TPU-native analogue of the reference's streaming ``march_rays`` /
+        static-shape analogue of the reference's streaming ``march_rays`` /
         ``composite_rays`` loop that kills converged rays
         (``raymarching.py:367-510``, ``raymarching.cu:809-1077``). Rays
         that hit a surface early stop paying for the samples behind it;
@@ -768,9 +768,9 @@ class RendererSpec:
         ``skip_warp=True`` renders with the t-query features only (no flow
         eval, no ±1-frame blend) — ~2.6x fewer gather rows per sample. An
         APPROXIMATION of the trained model (the blend is part of its
-        density definition): measured +53% CD / −0.75 dB PSNR on a dynamic
-        scene (VALIDATION.md render-K ablation), so it ships default-off
-        as a draft/preview mode (tools/ablate_render_k.py arms)."""
+        density definition): it lost CD and PSNR on a dynamic scene in the
+        tools/ablate_render_k.py arms, so it ships default-off as a
+        draft/preview mode."""
         use_occ = occ_spec is not None and occ_grid is not None
         if not staged:
             if use_occ:

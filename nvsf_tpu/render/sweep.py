@@ -1,10 +1,10 @@
 """Batched novel-sensor rendering sweeps, sharded across a device mesh.
 
 BASELINE.json's fifth benchmark config: "custom-sensor NVS sweep: batched
-renders at novel intrinsics/extrinsics sharded across a v5e-8". All frames'
-rays are generated on device, flattened, sharded along the ray axis over the
-mesh (params replicated), and rendered through one jitted chunked program —
-the TPU-native replacement for the reference's per-frame host loop
+renders at novel intrinsics/extrinsics sharded across a device mesh". All
+frames' rays are generated on device, flattened, sharded along the ray axis
+over the mesh (params replicated), and rendered through one jitted chunked
+program — the replacement for the reference's per-frame host loop
 (``trainer.py:1109-1283``).
 
 Compiled sweep programs are cached per (renderer, shape, occupancy) key so

@@ -68,15 +68,10 @@ def main(argv=None):
     from nvsf_tpu.train.evaluate import evaluate
     from nvsf_tpu.train.trainer import Trainer
     from nvsf_tpu.parallel.mesh import make_mesh, mesh_from_spec
+    from nvsf_tpu.compile_cache import enable_compile_cache
     import jax
 
-    # persistent compilation cache: the flagship step compiles in ~2-4 min
-    # cold on the TPU remote compiler; cached reruns load in seconds
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("NVSF_JAX_CACHE",
-                                     "/tmp/nvsf_tpu_jax_cache_tpu"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    enable_compile_cache()
 
     mesh = None
     if cfg.mesh_shape:

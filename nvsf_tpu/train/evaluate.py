@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from nvsf_tpu.lib import convert, masks as masklib, metrics as M
+from nvsf_tpu.lib.tools import write_png
 
 
 def _lpips_meter(cfg):
@@ -82,10 +83,9 @@ def lidar_category_masks(pred_depth, gt_depth, pose_lidar, annotations, *,
 
 
 def _save_pano_png(path, arr, vmax=None):
-    import imageio.v2 as imageio
     a = np.asarray(arr, np.float32)
     vmax = vmax or max(float(a.max()), 1e-8)
-    imageio.imwrite(path, (np.clip(a / vmax, 0, 1) * 255).astype(np.uint8))
+    write_png(path, (np.clip(a / vmax, 0, 1) * 255).astype(np.uint8))
 
 
 def evaluate(trainer, scene, *, use_refine: bool = False, use_ema: bool = True,
@@ -237,8 +237,7 @@ def evaluate(trainer, scene, *, use_refine: bool = False, use_ema: bool = True,
                     mm["rmse"].update(out["depth"][..., None] / cfg.scale,
                                       scene.image_depths[fi])
             if write_outputs and save_dir:
-                import imageio.v2 as imageio
-                imageio.imwrite(
+                write_png(
                     os.path.join(save_dir, f"{name}_{fi:04d}_rgb.png"),
                     (np.clip(pred_rgb, 0, 1) * 255).astype(np.uint8))
 

@@ -76,12 +76,11 @@ def save_sampling_heatmap(error_map: np.ndarray, path: str,
                           title: str = "") -> None:
     """Dump a per-frame sampling-weight heatmap PNG
     (``utils.py:875-920`` analogue; the error map IS the sampling law)."""
-    import imageio.v2 as imageio
+    from nvsf_tpu.lib.tools import write_png
     em = np.asarray(error_map, np.float64)
     em = em / max(em.max(), 1e-12)
     img = (np.sqrt(em) * 255).astype(np.uint8)  # sqrt for visibility
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    imageio.imwrite(path, img)
+    write_png(path, img)
 
 
 def count_parameters(params) -> int:

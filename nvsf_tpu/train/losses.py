@@ -92,8 +92,7 @@ def lidar_chamfer_loss(rays_d, pred_depth, gt_depth, scale):
     (``trainer.py:229-233``)."""
     pred_pts = rays_d * (pred_depth / scale)[:, None]
     gt_pts = rays_d * (gt_depth / scale)[:, None]
-    # training needs the autodiff min-subgradient -> XLA scan path
-    d1, d2 = chamfer_distance(pred_pts, gt_pts, use_pallas=False)
+    d1, d2 = chamfer_distance(pred_pts, gt_pts)
     return 0.5 * (d1 + d2).mean()
 
 
@@ -101,8 +100,7 @@ def flow_consistency_loss(pc, pc_mask, pc_next, pc_next_mask, flow):
     """One direction of the scene-flow loss (``trainer.py:247-267``):
     chamfer(pc + flow, pc_next) summed + L1 flow magnitude."""
     pc_pred = pc + flow
-    d1, d2 = chamfer_distance(pc_pred, pc_next, use_pallas=False,
-                              a_mask=pc_mask,
+    d1, d2 = chamfer_distance(pc_pred, pc_next, a_mask=pc_mask,
                               b_mask=pc_next_mask)
     cd = 0.5 * (d1.sum() + d2.sum())
     n_valid = jnp.maximum(pc_mask.sum(), 1)

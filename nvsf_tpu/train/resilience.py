@@ -2,7 +2,7 @@
 failures by reloading the latest checkpoint.
 
 The reference's only fault tolerance is NaN scrubbing + manual checkpoint
-resume (SURVEY §5). TPU pools can lose workers mid-run (preemption, resets),
+resume (SURVEY §5). Accelerators can be lost mid-run (preemption, resets),
 so the trainer here can ride through: on a runtime error the device state is
 rebuilt from the last full checkpoint and the epoch loop continues.
 """

@@ -9,6 +9,7 @@ import os
 import numpy as np
 
 from nvsf_tpu.lib import convert
+from nvsf_tpu.lib.tools import write_png, write_pcd
 
 
 def _to_u8(a, vmax=None):
@@ -20,8 +21,14 @@ def _to_u8(a, vmax=None):
 def _write_videos(save_dir, name, depth_frames, rgb_frames, log_fn):
     """mp4 when an ffmpeg backend exists (``nvsf/nerf/trainer.py:1264-1281``
     writes mp4); otherwise fall back to GIF, which imageio writes natively
-    with no external codec — the eval videos are short (tens of frames)."""
-    import imageio.v2 as imageio
+    with no external codec — the eval videos are short (tens of frames).
+    Without the optional ``imageio`` package, logs and writes no video."""
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        if log_fn:
+            log_fn("[test] imageio is not installed; skipping videos")
+        return
 
     def write(frames, stem):
         if not frames:
@@ -48,7 +55,6 @@ def _write_videos(save_dir, name, depth_frames, rgb_frames, log_fn):
 
 def run_test(trainer, scene, *, save_dir, name="test", use_refine=False,
              write_video=False, log_fn=print):
-    import imageio.v2 as imageio
     cfg = trainer.cfg
     os.makedirs(save_dir, exist_ok=True)
     depth_frames, rgb_frames = [], []
@@ -68,12 +74,11 @@ def run_test(trainer, scene, *, save_dir, name="test", use_refine=False,
             mask = (raydrop > cfg.raydrop_thres).astype(np.float32)
             depth = pred["depth"] * mask
             inten = pred["intensity"] * mask
-            imageio.imwrite(os.path.join(save_dir,
-                                         f"{name}_{fi:04d}_depth.png"),
-                            _to_u8(depth))
-            imageio.imwrite(os.path.join(save_dir,
-                                         f"{name}_{fi:04d}_intensity.png"),
-                            _to_u8(inten, vmax=1.0))
+            write_png(os.path.join(save_dir, f"{name}_{fi:04d}_depth.png"),
+                      _to_u8(depth))
+            write_png(os.path.join(save_dir,
+                                   f"{name}_{fi:04d}_intensity.png"),
+                      _to_u8(inten, vmax=1.0))
             # point clouds in lidar + world frames (``trainer.py:1147-1281``)
             pts = convert.pano_to_lidar_with_intensities(
                 depth / cfg.scale, inten, scene.intrinsics_lidar,
@@ -83,7 +88,6 @@ def run_test(trainer, scene, *, save_dir, name="test", use_refine=False,
                        pts, fmt="%.6f")
             # .pcd alongside txt, like the reference's open3d writes
             # (``trainer.py:1147-1281``, ``tools.py:230-249``)
-            from nvsf_tpu.lib.tools import write_pcd
             write_pcd(os.path.join(save_dir, f"{name}_{fi:04d}_lidar.pcd"),
                       pts[:, :3], pts[:, 3])
             pose = np.array(scene.poses_lidar[fi], np.float64)
@@ -97,8 +101,8 @@ def run_test(trainer, scene, *, save_dir, name="test", use_refine=False,
         if cfg.enable_rgb and scene.poses is not None:
             out = trainer.render_view(scene.poses[fi], t, scene.H, scene.W,
                                       scene.intrinsics, use_ema=True)
-            imageio.imwrite(os.path.join(save_dir, f"{name}_{fi:04d}_rgb.png"),
-                            _to_u8(out["rgb"], vmax=1.0))
+            write_png(os.path.join(save_dir, f"{name}_{fi:04d}_rgb.png"),
+                      _to_u8(out["rgb"], vmax=1.0))
             rgb_frames.append(_to_u8(out["rgb"], vmax=1.0))
     if write_video:
         _write_videos(save_dir, name, depth_frames, rgb_frames, log_fn)

@@ -56,7 +56,7 @@ def test_category_masks_follow_reference_protocol():
     """Pred-derived masks apply to pred operands, gt-derived masks to gt
     operands (``nvsf/nerf/trainer.py:1586-1626``) — on a constructed frame
     where the two mask sets DIFFER, each category metric must equal a numpy
-    oracle of the reference formula (VERDICT r3 item 4)."""
+    oracle of the reference formula."""
     from nvsf_tpu.train.evaluate import lidar_category_masks
     from nvsf_tpu.lib import metrics as M
 
@@ -151,7 +151,7 @@ def _synthetic_lpips_npz(path):
 def test_lpips_end_to_end_finite_json(tmp_path):
     """With a weights npz wired through the config, the FULL meter suite
     produces finite LPIPS everywhere — no NaN columns in the JSON error
-    matrices (VERDICT r3 item 8; reference works out of the box via the
+    matrices (the reference works out of the box via the
     lpips pip package, ``error_matrices.py:473-515``).
 
     Needs panos >= ~31 px tall: below that AlexNet's conv/pool pyramid

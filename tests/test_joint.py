@@ -4,8 +4,8 @@ path (one fused gather per encoder family, shared sigma-net batch —
 the separate per-branch paths exactly, forward AND gradient.
 
 The reference renders the branches in separate calls
-(``nvsf/nerf/trainer.py:193-200,491-499``); the fusion is a TPU
-performance redesign, so its contract is bit-level-comparable math.
+(``nvsf/nerf/trainer.py:193-200,491-499``); the fusion is a performance
+redesign, so its contract is bit-level-comparable math.
 """
 
 import jax

@@ -102,8 +102,7 @@ def test_write_error_matrix(tmp_path):
 
 
 def test_lpips_numerical_vs_numpy_reference(tmp_path):
-    """Synthetic-weights parity for the LPIPS conv pipeline (VERDICT r2
-    item 7): random npz through the documented export schema, compared
+    """Synthetic-weights parity for the LPIPS conv pipeline (random npz through the documented export schema, compared
     against an independent hand-rolled numpy forward. Only the real
     weights FILE — not the code — remains unvalidated in this env."""
     import numpy as np

@@ -211,8 +211,8 @@ def test_render_k_knob_routes_lidar_only(tmp_path):
 
 def test_occupancy_retention_moving_object():
     """A FAST-moving object's trajectory cells must stay occupied under the
-    stratified-time union refresh (VERDICT r2: the times[0]-only refresh
-    silently culled dynamic content)."""
+    stratified-time union refresh (a times[0]-only refresh
+    silently culls dynamic content)."""
     spec = OccupancyGridSpec(grid_size=16, bound=1.0, decay=0.8,
                              update_fraction=1)
     grid = spec.init()
@@ -275,7 +275,7 @@ def test_occupancy_single_time_refresh_loses_moving_object():
 
 def test_occ_refresh_cadence_mid_epoch(tmp_path):
     """occ_update_interval must be honored DURING a scan epoch, not once per
-    epoch (VERDICT r2 item 3): 16 steps/epoch at interval 4 -> 4 refreshes."""
+    epoch: 16 steps/epoch at interval 4 -> 4 refreshes."""
     scene = make_synthetic_scene(SCENE_SPEC, split="train")
     tr = Trainer(tiny_config(render_mode="occupancy", num_steps=96,
                              num_steps_occ=32, occ_grid_size=32,

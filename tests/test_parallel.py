@@ -95,7 +95,7 @@ def test_weak_scaling_sharded_step():
 
 
 def test_sharded_step_collectives_and_flops():
-    """Comm evidence from the compiled sharded step (VERDICT r2 item 8):
+    """Comm evidence from the compiled sharded step:
     the gradient psum must appear as all-reduce collectives whose count is
     bounded by the number of gradient leaves, with nonzero payload."""
     from nvsf_tpu.parallel.mesh import collective_stats
@@ -132,14 +132,13 @@ def test_sharded_step_collectives_and_flops():
 @pytest.mark.slow
 def test_mesh_two_epochs_and_checkpoint_roundtrip(tmp_path):
     """Two consecutive scan epochs + a checkpoint save/load UNDER the mesh:
-    catches donation/aliasing bugs in the sharded step's buffers
-    (VERDICT r2 item 8).
+    catches donation/aliasing bugs in the sharded step's buffers.
 
     slow tier: the cost is compiling the mesh-sharded step (~35s, epoch
     length is irrelevant); the fast tier keeps compile-level mesh coverage
     via the collectives/flops test above (lower/compile only — EXECUTED
     sharded-step coverage lives in this slow test and in
-    __graft_entry__.dryrun_multichip, which the driver runs every round)."""
+    __graft_entry__.dryrun_multichip)."""
     scene = make_synthetic_scene(SCENE_SPEC, split="train")
     tr = Trainer(tiny_config(num_rays_lidar=128, num_steps=16,
                              change_patch_size_lidar=[1]),

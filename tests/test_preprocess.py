@@ -239,7 +239,7 @@ def test_annotations_parse(mini_kitti):
 @pytest.mark.slow
 def test_parity_harness_end_to_end(mini_kitti, tmp_path_factory):
     """The KITTI-360 parity protocol as one command chain: preprocess ->
-    CLI train -> eval -> JSON error matrices (VALIDATION.md §parity). On a
+    CLI train -> eval -> JSON error matrices. On a
     real KITTI-360 mount the same two commands produce reference-comparable
     numbers; this runs them end to end on the 2-frame-class mini fixture.
     """

@@ -11,7 +11,7 @@ from test_trainer import SCENE_SPEC, tiny_config
 
 
 def test_is_recoverable_classification():
-    assert is_recoverable(RuntimeError("UNAVAILABLE: TPU worker crashed"))
+    assert is_recoverable(RuntimeError("UNAVAILABLE: GPU worker crashed"))
     assert is_recoverable(RuntimeError("RESOURCE_EXHAUSTED: hbm"))
     assert not is_recoverable(ValueError("shape mismatch"))
 
@@ -28,7 +28,7 @@ def test_recovery_resumes_from_checkpoint(tmp_path):
     def flaky(*a, **k):
         if tr.epoch in fail_at:
             fail_at.clear()
-            raise RuntimeError("UNAVAILABLE: TPU worker crashed or restarted")
+            raise RuntimeError("UNAVAILABLE: GPU worker crashed or restarted")
         return orig(*a, **k)
 
     tr.train_one_epoch = flaky

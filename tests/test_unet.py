@@ -55,7 +55,7 @@ def test_random_box_mask():
     assert m.mean() > 0.5  # boxes cover a minority of the image
 
 
-@pytest.mark.slow  # fast-tier rebalance (VERDICT r4 item 8): covered by recovery/CLI fast tests
+@pytest.mark.slow  # fast tier covers this via the recovery/CLI tests
 def test_refine_learns_identity_raydrop():
     """The U-Net must learn to reproduce a simple GT raydrop pattern from a
     noisy prediction in a few hundred steps."""

@@ -2,10 +2,9 @@
 ``nvsf_tpu/lib/lpips_jax.py`` loads.
 
 The reference computes LPIPS with the ``lpips`` pip package
-(``/root/reference/nvsf/lib/error_matrices.py:164,484``), which downloads
-pretrained AlexNet + linear-head weights. This environment has zero
-egress, so the conversion must run OUTSIDE (any machine with ``pip
-install lpips``) and the npz shipped in. Schema (see lpips_jax.py):
+(reference ``nvsf/lib/error_matrices.py:164,484``), which downloads
+pretrained AlexNet + linear-head weights. Run the conversion on a machine
+with network access and ``pip install lpips``, then ship the npz. Schema (see lpips_jax.py):
 
   conv{i}_w [out, in, kh, kw], conv{i}_b [out]   i in 0..4 (AlexNet trunk)
   lin{i}_w  [1, C_i, 1, 1]                        i in 0..4 (LPIPS heads)

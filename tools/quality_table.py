@@ -2,10 +2,9 @@
 
 Reads one or more run logs (each a stream of JSON lines from
 tools/quality_run_full.py), collects the eval rows, and prints a markdown
-table of matched-epoch metrics per (shape, seed) arm — the artifact
-VALIDATION.md's production-scale quality-equivalence section records.
+table of matched-epoch metrics per (shape, seed) arm.
 
-Usage: python tools/quality_table.py /tmp/qr_*.log
+Usage: python tools/quality_table.py qr_*.log
 """
 
 import json

@@ -1,9 +1,9 @@
-"""Render-path parameter sweep (VERDICT r2 item 4): full-frame eval render
+"""Render-path parameter sweep: full-frame eval render
 through the occupancy-sorted early-exit marcher across K (kept samples)
 x slab (samples per early-exit slab), plus the chunk-size axis.
 
 Usage: python tools/render_sweep.py
-Prints one JSON line per point; run on the TPU chip.
+Prints one JSON line per point; run on the GPU.
 """
 
 import dataclasses
@@ -18,13 +18,11 @@ import numpy as np
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/nvsf_tpu_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nvsf_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import bench
 
-    tag, cfg, tr, scene = bench._make_trainer(bench.LADDER[0])
+    tag, cfg, tr, scene = bench._make_trainer(bench.HEADLINE)
     tr.train_one_epoch(order=np.arange(2))   # grid fresh-ish
     n_rays = scene.H_lidar * scene.W_lidar
     base_rend = tr.rend

@@ -6,12 +6,15 @@ occupancy-compacted early-exit marcher behind eval/test renders
 device-op time grouped by kind, joined with HLO source metadata where the
 compiled text is dumped.
 
-Usage: python tools/trace_render.py [--frames 4] [--dir /tmp/nvsf_trace_render]
+Usage: python tools/trace_render.py [--frames 4] [--dir DIR]
+(default DIR: nvsf_trace_render under the temp directory)
 """
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, ".")
@@ -22,7 +25,8 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=4)
-    ap.add_argument("--dir", default="/tmp/nvsf_trace_render")
+    ap.add_argument("--dir", default=os.path.join(tempfile.gettempdir(),
+                                                  "nvsf_trace_render"))
     ap.add_argument("--parse-only", action="store_true")
     args = ap.parse_args()
 
@@ -33,16 +37,14 @@ def main():
         return
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/nvsf_tpu_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nvsf_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     import bench
 
     # same trained-model render setup as bench._run_render_bench
     tag, cfg, tr, scene = bench._make_trainer(dict(
-        bench.LADDER[0], num_steps_occ_render=96, max_ray_batch=2048,
+        bench.HEADLINE, num_steps_occ_render=96, max_ray_batch=2048,
         occ_update_fraction=1))
     for ep in range(1, 7):
         tr.epoch = ep

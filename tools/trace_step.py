@@ -1,21 +1,24 @@
 """In-situ decomposition of the REAL train step from a device trace.
 
-tools/bench_decompose.py times components in isolation, but isolated
-programs lose the overlap/fusion structure of the full compiled step (its
-numbers do not sum to the measured step time). This tool instead traces
+Programs timed in isolation lose the overlap/fusion structure of the full
+compiled step (their numbers do not sum to the measured step time). This
+tool instead traces
 the actual bench.py headline (or joint) step with jax.profiler, parses the
 xplane with jax.profiler.ProfileData, and prints device-op time grouped by
 op kind — the ground truth for where the step spends its time.
 
 Usage: python tools/trace_step.py [--rung headline|joint-tuned|joint-8x4]
-                                  [--steps 16] [--dir /tmp/nvsf_trace]
+                                  [--steps 16] [--dir DIR]
+(default DIR: nvsf_trace under the temp directory)
 """
 
 import argparse
 import collections
 import glob
 import json
+import os
 import sys
+import tempfile
 
 sys.path.insert(0, ".")
 
@@ -59,8 +62,7 @@ def summarize(trace_dir: str, top: int = 30):
             total += dur
 
     planes = list(pd.planes)
-    dev_planes = [p for p in planes if "tpu" in p.name.lower()
-                  or "device" in p.name.lower()]
+    dev_planes = [p for p in planes if "device" in p.name.lower()]
     if dev_planes:
         for plane in dev_planes:
             for line in plane.lines:
@@ -89,7 +91,8 @@ def main():
     ap.add_argument("--rung", default="headline",
                     choices=["headline", "joint-tuned", "joint-8x4"])
     ap.add_argument("--steps", type=int, default=16)
-    ap.add_argument("--dir", default="/tmp/nvsf_trace")
+    ap.add_argument("--dir", default=os.path.join(tempfile.gettempdir(),
+                                                  "nvsf_trace"))
     ap.add_argument("--parse-only", action="store_true",
                     help="just summarize an existing trace dir")
     args = ap.parse_args()
@@ -99,15 +102,13 @@ def main():
         return
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/nvsf_tpu_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from nvsf_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     import bench
 
-    over = {"headline": bench.LADDER[0],
-            "joint-tuned": bench.JOINT_TUNED_LADDER[0],
+    over = {"headline": bench.HEADLINE,
+            "joint-tuned": bench.JOINT_TUNED,
             "joint-8x4": bench.JOINT}[args.rung]
     tag, cfg, tr, _ = bench._make_trainer(over)
     frames = np.resize(np.arange(16), 8)
